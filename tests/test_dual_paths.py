@@ -4,7 +4,7 @@ Several steps have TWO implementations that must stay bit-equal — a pure
 host/numpy path (used by the multi-host exact pipeline and as the oracle)
 and a device-resident fast path (used by the single-host encoder). This
 one parametrized suite pins each pair so perf work can't silently fork
-them (VERDICT round-1 weak item #8):
+them:
 
   - mirror canonicalization: canonicalize_mirrors vs the jitted device fn
   - MakeUnique: compute_unique_fwd vs compute_unique_fwd_device

@@ -16,7 +16,7 @@ def mesh8():
 
 def test_mesh_shape(mesh8):
     assert dict(zip(mesh8.axis_names, mesh8.devices.shape)) == \
-        {'gop': 2, 'frame': 4}
+        {'rows': 8}
 
 
 def test_sharded_features_match_single(rng, mesh8):
@@ -206,8 +206,8 @@ def test_distributed_two_process_encode(tmp_path, rng):
 
 
 def test_mesh_encode_byte_identical(rng, mesh8):
-    """THE round-3 north-star criterion: the full production encode with
-    the ('gop','frame') mesh wired into the pipeline (frame-sharded
+    """The full production encode with the device mesh wired into the
+    pipeline (frame-sharded
     FrameTiling mark/feats/assign + distributed KModes via
     mesh_kmodes=True, parallel.mesh_pipeline) is byte-identical to the
     1-device encode.
@@ -232,28 +232,6 @@ def test_mesh_encode_byte_identical(rng, mesh8):
     assert enc.state.metrics['ft_q_changed_frac'] < 1.0
 
 
-def test_mesh_assign_pallas_interpret_byte_identical(mesh8, monkeypatch):
-    """VERDICT r3 item 3: the shard_mapped stage-3 assign can run the
-    fused Pallas streaming 1-NN per shard (on real TPU hardware it does
-    so automatically; here the kernel runs in interpret mode on the CPU
-    mesh) and the stream stays byte-identical — the kernel and the XLA
-    scan share the lowest-candidate-index-wins tie rule, and the r3 chip
-    measurements saw identical winner indices at production shapes."""
-    from __graft_entry__ import _dryrun_clip
-    from tiler_tpu.config import EncoderConfig
-    from tiler_tpu.pipeline.encoder import Encoder
-
-    frames = _dryrun_clip()
-    cfg = EncoderConfig(palette_count=8, tile_palette_size=16,
-                        max_tiles=120)
-    want = Encoder(cfg).run_all(frames, fast_lzma=True)  # scan path
-    monkeypatch.setenv('TILER_PALLAS_INTERPRET', '1')
-    enc = Encoder(cfg, mesh=mesh8)
-    got = enc.run_all(frames, fast_lzma=True)
-    assert got == want, \
-        'pallas-per-shard mesh encode differs from the scan-path encode'
-
-
 def test_ft_row_budget_grouping_byte_identical(monkeypatch):
     """Forcing the FrameTiling HBM row budget down to one keyframe per
     group (the long-clip memory-bound path with a flush sync between
@@ -267,27 +245,29 @@ def test_ft_row_budget_grouping_byte_identical(monkeypatch):
     cfg = EncoderConfig(palette_count=8, tile_palette_size=16,
                         max_tiles=120)
     want = Encoder(cfg).run_all(frames, fast_lzma=True)
-    monkeypatch.setenv('TILER_FT_ROW_BUDGET', '1')
+    from tiler_tpu.pipeline import frame_tiling
+    monkeypatch.setattr(frame_tiling, '_row_budget', lambda: 1)
     got = Encoder(cfg).run_all(frames, fast_lzma=True)
     assert got == want, 'per-keyframe grouping changed the stream'
 
 
-def test_single_device_pallas_interpret_byte_identical(monkeypatch):
-    """The single-device whole-keyframe Pallas assign (the TPU
-    production path) matches the XLA scan path byte for byte (interpret
-    mode stands in for the chip here)."""
-    from __graft_entry__ import _dryrun_clip
-    from tiler_tpu.config import EncoderConfig
-    from tiler_tpu.pipeline.encoder import Encoder
+@pytest.mark.parametrize('axis', [0, 1])
+def test_per_device_rows_runs_the_single_device_program(rng, mesh8, axis):
+    """per_device_rows splits the rows over the devices, hands every
+    device the replicated arguments whole, and reassembles the outputs
+    in row order as one array sharded over the mesh."""
+    import jax.numpy as jnp
+    from tiler_tpu.parallel.mesh_pipeline import per_device_rows, replicate
 
-    frames = _dryrun_clip()
-    cfg = EncoderConfig(palette_count=8, tile_palette_size=16,
-                        max_tiles=120)
-    want = Encoder(cfg).run_all(frames, fast_lzma=True)  # scan path
-    monkeypatch.setenv('TILER_PALLAS_INTERPRET', '1')
-    got = Encoder(cfg).run_all(frames, fast_lzma=True)
-    assert got == want, \
-        'pallas whole-keyframe assign differs from the scan path'
+    rows = rng.integers(0, 100, (64, 4) if axis == 0 else (3, 64))
+    table = rng.normal(0, 1, (100,)).astype(np.float32)
+    fn = jax.jit(lambda r, t: (t[r].sum(axis=1 - axis), r.sum(axis=1 - axis)))
+    want = fn(jnp.asarray(rows), jnp.asarray(table))
+    got = per_device_rows(mesh8, fn, rows, replicate(mesh8, table),
+                          axis=axis)
+    for g, w in zip(got, want):
+        assert len(g.sharding.device_set) == 8
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 @pytest.mark.parametrize('n_dev', [1, 2, 8])

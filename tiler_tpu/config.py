@@ -84,8 +84,8 @@ class EncoderConfig:
     # Default OFF: measured on the 8-device CPU mesh the sequential
     # per-bin shard_map solves (3.5 s with the solver compile cache)
     # still trail the single-device vmapped super-shape batch (2.5 s) —
-    # bins are many and small, and vmap lanes already saturate one chip.
-    # Turn on for real multi-chip meshes with large bins; results are
+    # bins are many and small, and vmap lanes already fill one device.
+    # Turn on for real multi-GPU meshes with large bins; results are
     # bit-identical either way (tested at 1/2/8 devices). Ignored when
     # no mesh is attached.
     mesh_kmodes: bool = False

@@ -1,8 +1,8 @@
 """Codec-wide constants.
 
 These mirror the reference encoder's tweakable/fixed constants
-(/root/reference/main.pas:17-98) but are re-derived here for a TPU-native
-array implementation: everything that was a Pascal LUT becomes a NumPy
+(the reference's main.pas:17-98) but are re-derived here for an array
+implementation: everything that was a Pascal LUT becomes a NumPy
 array built once at import and shipped to the device as needed.
 """
 from __future__ import annotations

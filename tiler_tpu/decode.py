@@ -7,7 +7,8 @@ mirroring, SkipBlock leaving previous pixels intact, palettes reloadable per
 keyframe. The renderer here is a batched gather: for all drawn cells of a
 frame, rgb = palette[attrs>>2][tile_pixels] with mirror flips applied as
 array reversals — one fused gather instead of the player's per-pixel blit
-loops (gtm.player.js:182-251). A jitted JAX variant renders on TPU.
+loops (gtm.player.js:182-251). A jitted JAX variant renders on the
+device.
 """
 from __future__ import annotations
 
@@ -348,7 +349,8 @@ def decode_video_jax_scan(data: bytes) -> np.ndarray:
 
 
 def decode_video_jax(data: bytes) -> np.ndarray:
-    """Decode using the TPU scatter renderer; returns frames [F,H,W,3]."""
+    """Decode using the jitted scatter renderer; returns frames
+    [F,H,W,3]."""
     import jax.numpy as jnp
 
     stream = interpret_commands(parse_gtm(data))

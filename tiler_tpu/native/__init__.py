@@ -1,34 +1,31 @@
 """Native (C++) runtime components, bound via ctypes.
 
-Built lazily with g++ on first use and cached next to the sources. Each
-binding has a pure-Python capability check so the package still imports on
-systems without a toolchain (features needing the library raise then).
+Built lazily with g++ on first use into `build/` next to the sources (a
+directory git ignores). The library's file name carries a hash of the
+sources and of the compiler's target for this host (`-march=native`
+resolves to the host's CPU), so a library built from other sources, or on
+another host, is never loaded: a checkout copied to a new machine builds
+its own. Each binding has a pure-Python capability check so the package
+still imports on systems without a toolchain (features needing the
+library raise then).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO_PATH = os.path.join(_DIR, 'libtiler_native.so')
+_BUILD_DIR = os.path.join(_DIR, 'build')
 _SOURCES = ['lzma1.cc', 'lzma1_enc.cc', 'dl3.cc', 'gtm_pack.cc',
             'fs_dither.cc']
+_CXXFLAGS = ['-O3', '-march=native', '-fno-math-errno', '-shared', '-fPIC',
+             '-std=c++17']
 _lock = threading.Lock()
 _lib = None
 _build_error: Exception | None = None
-
-
-def _needs_build() -> bool:
-    if not os.path.exists(_SO_PATH):
-        return True
-    so_mtime = os.path.getmtime(_SO_PATH)
-    for src in _SOURCES:
-        p = os.path.join(_DIR, src)
-        if os.path.exists(p) and os.path.getmtime(p) > so_mtime:
-            return True
-    return False
 
 
 class NoToolchainError(RuntimeError):
@@ -40,16 +37,50 @@ class NoToolchainError(RuntimeError):
     real breakage that must surface, not silently downgrade output."""
 
 
-def _build() -> None:
-    srcs = [os.path.join(_DIR, s) for s in _SOURCES
-            if os.path.exists(os.path.join(_DIR, s))]
-    cmd = ['g++', '-O3', '-march=native', '-fno-math-errno',
-           '-shared', '-fPIC', '-std=c++17',
-           '-o', _SO_PATH] + srcs
+def _compiler_target() -> bytes:
+    """What `-march=native` means on this host: g++'s version and its
+    predefined macros under the build flags (CPU features included)."""
+    try:
+        out = subprocess.run(
+            ['g++', *_CXXFLAGS[:3], '-dM', '-E', '-x', 'c++', '-'],
+            input=b'', check=True, capture_output=True).stdout
+        ver = subprocess.run(['g++', '--version'], check=True,
+                             capture_output=True).stdout
+    except FileNotFoundError as e:
+        raise NoToolchainError('g++ not found on this host') from e
+    return ver + out
+
+
+def lib_path(sources: dict[str, bytes], target: bytes) -> str:
+    """Where the library built from `sources` (name -> bytes) for
+    `target` (see _compiler_target) lives."""
+    h = hashlib.sha256(target)
+    for name in sorted(sources):
+        h.update(name.encode() + b'\0' + sources[name] + b'\0')
+    return os.path.join(_BUILD_DIR,
+                        f'libtiler_native-{h.hexdigest()[:16]}.so')
+
+
+def _read_sources() -> dict[str, bytes]:
+    out = {}
+    for name in _SOURCES:
+        with open(os.path.join(_DIR, name), 'rb') as f:
+            out[name] = f.read()
+    return out
+
+
+def _build(path: str) -> None:
+    """Compile the sources into `path` (via a temporary name, so a
+    concurrent process never loads a half-written file)."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f'{path}.{os.getpid()}.tmp'
+    cmd = ['g++', *_CXXFLAGS, '-o', tmp] + \
+        [os.path.join(_DIR, s) for s in _SOURCES]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except FileNotFoundError as e:
         raise NoToolchainError('g++ not found on this host') from e
+    os.replace(tmp, path)
 
 
 def get_lib():
@@ -61,9 +92,10 @@ def get_lib():
         if _build_error is not None:
             raise _build_error
         try:
-            if _needs_build():
-                _build()
-            lib = ctypes.CDLL(_SO_PATH)
+            path = lib_path(_read_sources(), _compiler_target())
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
         except Exception as e:  # noqa: BLE001
             _build_error = e
             raise

@@ -1,11 +1,11 @@
-"""Psychovisual tile features, batched for the MXU.
+"""Psychovisual tile features as one batched matmul.
 
 The reference computes a 192-dim descriptor per 8x8 tile: YUV (or LAB)
 planes through either an 8x8 2-D DCT with optional JPEG-table weighting
 (ComputeTilePsyVisFeatures, /root/reference/main.pas:2997-3177, DCT LUT at
 main.pas:613-623) or a depth-2 Haar wavelet (WaveletGS, main.pas:2805-2840).
 
-TPU-first design: both transforms are linear maps on the 64 pixels of a
+Both transforms are linear maps on the 64 pixels of a
 plane, so each is one [64,64] matrix and the whole feature computation is a
 single batched matmul  feat[n,cpn] = cpn_pixels[n,cpn] @ B * w[cpn]  that
 XLA fuses with the colorspace arithmetic — replacing the reference's
@@ -24,6 +24,7 @@ import numpy as np
 from ..constants import (DCT_BASIS_FLAT, DCT_QUANT, TILE_DCT_SIZE, TILE_W,
                          UV_RATIO)
 from . import color
+from .numerics import stream_precision
 
 
 def _wavelet_level_np(buf: np.ndarray, dx: int, dy: int) -> np.ndarray:
@@ -139,6 +140,7 @@ def psyv_from_cpn(cpn, use_wavelets: bool = False, q_weighting: bool = False):
     n = cpn.shape[0]
     flat = cpn.reshape(n, 3, 64)
     coeff = jnp.einsum('ncp,pk->nck', flat, basis,
+                       precision=stream_precision(),
                        preferred_element_type=jnp.float32)
     coeff = coeff * weights[None]
     return coeff.reshape(n, TILE_DCT_SIZE)

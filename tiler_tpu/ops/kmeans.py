@@ -3,10 +3,10 @@
 The reference clusters each keyframe's 192-dim PsyV features into
 `palette_count` groups with yakmo (k=128, 1 restart, unlimited iterations,
 k-means++ init; call site /root/reference/main.pas:2127-2133, C ABI at
-extern.pas:72-76). TPU-native version: distance = one [N,D]@[D,k] matmul on
-the MXU, assignment = argmin, update = segment-sum; k-means++ init as a
-lax.fori over k with a carried min-distance vector; the whole solver is one
-jitted lax.while_loop. Deterministic for a fixed seed.
+extern.pas:72-76). Here: distance = one [N,D]@[D,k] matmul at the contract
+precision (ops.numerics), assignment = argmin, update = a one-hot matmul;
+k-means++ init as a lax.fori over k with a carried min-distance vector; the
+whole solver is one jitted lax.while_loop. Deterministic for a fixed seed.
 """
 from __future__ import annotations
 
@@ -14,6 +14,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from .numerics import stream_precision
+
+
+def _mv(x, v):
+    return jnp.matmul(x, v, precision=stream_precision())
 
 
 def _plus_plus_init(x, k, key):
@@ -24,7 +30,7 @@ def _plus_plus_init(x, k, key):
     k0, key = jax.random.split(key)
     first = jax.random.randint(k0, (), 0, n)
     cents = jnp.zeros((k, x.shape[1]), x.dtype).at[0].set(x[first])
-    d2 = x2 + jnp.sum(x[first] ** 2) - 2.0 * (x @ x[first])
+    d2 = x2 + jnp.sum(x[first] ** 2) - 2.0 * _mv(x, x[first])
     d2 = jnp.maximum(d2, 0.0)
 
     def body(i, carry):
@@ -35,7 +41,7 @@ def _plus_plus_init(x, k, key):
         nxt = jax.random.categorical(kk, logits)
         c = x[nxt]
         cents = cents.at[i].set(c)
-        nd2 = x2 + jnp.sum(c * c) - 2.0 * (x @ c)
+        nd2 = x2 + jnp.sum(c * c) - 2.0 * _mv(x, c)
         d2 = jnp.minimum(d2, jnp.maximum(nd2, 0.0))
         return cents, d2, key
 
@@ -44,20 +50,20 @@ def _plus_plus_init(x, k, key):
 
 
 def _assign(x, x2, cents):
-    """[N] labels + [N] squared distances via MXU matmul."""
+    """[N] labels + [N] squared distances via one [N,D]@[D,k] matmul."""
     c2 = jnp.sum(cents * cents, axis=1)
-    dots = x @ cents.T  # [N, k] on the MXU
+    dots = _mv(x, cents.T)
     d2 = x2[:, None] + c2[None, :] - 2.0 * dots
     return jnp.argmin(d2, axis=1), jnp.maximum(jnp.min(d2, axis=1), 0.0)
 
 
 def _update(x, labels, k, old_cents):
-    # one-hot matmul instead of segment_sum: scatter-adds serialize on
-    # TPU (see ops.kmodes.update); one [k,N]@[N,D+1] MXU dot computes the
-    # per-cluster sums and counts together. Precision HIGHEST: the TPU
-    # default would truncate the feature values to bfloat16 operands
-    # (preferred_element_type only sets the accumulator), drifting the
-    # centroid sums from the segment_sum this replaces.
+    # one-hot matmul instead of segment_sum: one [k,N]@[N,D+1] dot
+    # computes the per-cluster sums and counts together, with no
+    # scatter-add atomics. Precision HIGHEST (IEEE float32 on every
+    # backend): the default may truncate the feature operands (TF32 on a
+    # GPU), drifting the centroid sums that the next assignment's argmin
+    # reads.
     onehot = jax.nn.one_hot(labels, k, dtype=jnp.float32)  # [N,k]
     xa = jnp.concatenate([x, jnp.ones((x.shape[0], 1), x.dtype)], axis=1)
     sc = jnp.dot(onehot.T, xa, preferred_element_type=jnp.float32,

@@ -1,8 +1,8 @@
 """Multi-host orchestration: jax.distributed init + GOP sharding across
 hosts (the SURVEY.md §5.7/§5.8 long-clip scaling design).
 
-Topology: keyframe spans (GOPs) are distributed round-robin across hosts
-over DCN; within a host, frames/tiles shard across local chips over ICI
+Topology: keyframe spans (GOPs) are distributed round-robin across hosts;
+within a host, frames/tiles shard across the local devices
 (parallel.sharded_ops). The global artifacts every host needs — the
 reduced tileset and palette centroids — are exchanged with allgather-style
 collectives; host 0 concatenates the per-GOP command streams into the

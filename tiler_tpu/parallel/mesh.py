@@ -1,11 +1,12 @@
-"""Device mesh construction: the distributed communication backend's axes.
+"""Device mesh construction.
 
 The reference has no distribution at all — a shared-memory thread pool is
-its only parallelism (SURVEY.md §2.4). This module builds the TPU-native
-2-D mesh designed in SURVEY.md §5.8 ('gop' over DCN-ish / 'frame' over
-ICI). The production sharded execution lives in parallel.mesh_pipeline
-(frame-sharded FrameTiling/dither wired into the pipeline steps) and
-parallel.sharded_ops (library ops with psum/all_gather collectives).
+its only parallelism (SURVEY.md §2.4). Every sharded stage here splits one
+row axis (frames, cells, queries, points) across the devices and keeps the
+model-side state replicated, so the mesh has one axis, ROWS. The
+production sharded execution lives in parallel.mesh_pipeline (the
+pipeline steps) and parallel.sharded_ops (library ops with psum /
+all_gather collectives).
 """
 from __future__ import annotations
 
@@ -13,21 +14,12 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
+ROWS = 'rows'
 
-def make_mesh(n_devices: int | None = None, gop_axis: int | None = None
-              ) -> Mesh:
-    """2-D mesh ('gop','frame'). gop_axis defaults to the largest power-of-2
-    divisor <= sqrt(n) so both axes are populated when possible."""
+
+def make_mesh(n_devices: int | None = None) -> Mesh:
+    """1-D mesh over the first n_devices local devices (all by default)."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
-    n = len(devices)
-    if gop_axis is None:
-        # largest power-of-2 divisor of n not exceeding sqrt(n)
-        gop_axis = 1
-        d = 2
-        while n % d == 0 and d * d <= n:
-            gop_axis = d
-            d *= 2
-    return Mesh(np.array(devices).reshape(gop_axis, n // gop_axis),
-                ('gop', 'frame'))
+    return Mesh(np.array(devices), (ROWS,))

@@ -1,44 +1,39 @@
 """Production frame-axis mesh execution for the encoder pipeline.
 
-This wires the ('gop','frame') mesh (parallel.mesh.make_mesh) into the
-REAL pipeline steps — the round-2 gap where sharded library ops existed
-but `Encoder.run_all` stayed single-device. The axis being replaced is
-the reference's per-frame thread fan-out (/root/reference/main.pas:972,
-1095): frames/cells of a GOP spread across chips over ICI.
+This wires the device mesh (parallel.mesh.make_mesh) into the REAL
+pipeline steps. The axis being replaced is the reference's per-frame
+thread fan-out (the reference's main.pas:972, 1095): frames/cells of a
+GOP spread across devices.
 
-Design rules (all three matter for the byte-identity guarantee):
+Design rules (all four matter for the byte-identity guarantee):
   * only embarrassingly-parallel stages shard — queries/rows split
     across devices, model state (candidate features, tile tensors,
     palettes) replicated. Per-row math is unchanged, so results are
     bit-identical to the single-device encode (asserted by
     tests/test_parallel.py::test_mesh_encode_byte_identical).
   * cross-row couplings stay on one logical device: the dither plan
-    dedup (a global sort), k-means centroid sums (f32 reduction order
-    would change under psum — the sharded prepare runs the update
-    replicated on the all-gathered features instead), and the GTM
-    writer. They are a small fraction of the 1080p wall clock
-    (BENCH_r02: ~1.1 s of 22 s).
+    dedup (a global sort), the dither k-means (per_device_rows' comment
+    says why it does not shard), and the GTM writer.
   * each shard runs the SAME jitted program as the single-device path
     (shard_map, not GSPMD auto-partitioning), so per-device behavior is
-    predictable and the Pallas kernels can slot in per-chip later.
+    predictable.
+  * the float-heavy FrameTiling stages 2 and 3 go one step further and
+    run the 1-device executable itself per device (per_device_rows).
 
 Sharded here:
   stage 3 assign  (frame_tiling: PsyV features + streaming 1-NN; the
-                   dominant kernel — ONE dispatch per keyframe, Pallas
-                   kernel per shard on TPU)
-  stage 2 feats   (frame_tiling candidate features)
+                   dominant phase — one dispatch per keyframe and device)
+  stage 2 feats   (frame_tiling candidate features, per device)
   stage 1 mark    (frame_tiling 8-NN marking)
-  dither prepare  (PsyV features + k-means assignment sharded; centroid
-                   update replicated for bit-exact f32 sums)
   Knoll dither    (plan counts + rank selection halves)
   smooth          (cell axis: fused features + frame-chain scan)
   KModes solves   (global_tiling via sharded_ops.sharded_kmodes when
                    config.mesh_kmodes, bit-identical at 1/2/8 devices)
-  MakeUnique      (round 5: hash-partitioned exact dedup, one
+  MakeUnique      (hash-partitioned exact dedup, one
                    all_to_all + per-shard radix dedup —
                    sharded_ops.sharded_unique; canonical winners keep
                    streams byte-identical)
-  GT signatures   (round 5: row-parallel signature build,
+  GT signatures   (row-parallel signature build,
                    signatures_sharded below)
 """
 from __future__ import annotations
@@ -48,25 +43,15 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import features
 
 
 def mesh_ok(mesh) -> bool:
     """Usable production mesh: >1 device, power-of-two size (row padding
-    is pow2-bucketed, so any pow2 device count divides every batch).
-
-    TILER_FORCE_MESH=1 admits a 1-device mesh: the sharded programs
-    (shard_map + the Pallas kernel inside it) then compile and EXECUTE
-    on whatever single chip is present — the only way to exercise the
-    compiled Mosaic-under-shard_map path on real TPU hardware when just
-    one chip is reachable (round-4 verdict item #4)."""
+    is pow2-bucketed, so any pow2 device count divides every batch)."""
     if mesh is None or not isinstance(mesh, Mesh):
         return False
     n = mesh.devices.size
-    if n == 1:
-        import os
-        return os.environ.get('TILER_FORCE_MESH') == '1'
-    return (n & (n - 1)) == 0
+    return n > 1 and (n & (n - 1)) == 0
 
 
 def replicate(mesh: Mesh, arr):
@@ -98,125 +83,41 @@ def _evict_other_meshes(cache: dict, mesh: Mesh) -> None:
         del cache[k]
 
 
-# -- stage 3: fused query features + streaming 1-NN -----------------------
-
-_assign_cache: dict = {}
-
-
-def _get_assign_full_fn(mesh: Mesh, gamma_value, use_wavelets: bool,
-                        qchunk: int, pallas: bool, interpret: bool,
-                        bq: int, bc: int):
-    key = (mesh, gamma_value, use_wavelets, qchunk, pallas, interpret,
-           bq, bc)
-    fn = _assign_cache.get(key)
-    if fn is not None:
-        return fn
-    _evict_other_meshes(_assign_cache, mesh)
-    ax = mesh.axis_names
-
-    if pallas:
-        def local(rows_loc, src_rep, cands_flat):
-            # chunked like the single-device path: Mosaic stack-allocates
-            # the kernel's full output pair in scoped VMEM, so each
-            # pallas_call's query count stays bounded
-            from ..ops.pallas_kernels import _nn_call
-            rows2d = rows_loc.reshape(-1, qchunk)
-
-            def body(carry, r):
-                q = features.psyv_features_rgb(
-                    src_rep[r], gamma_value=gamma_value,
-                    use_wavelets=use_wavelets)
-                err, idx = _nn_call(q, cands_flat, bq, bc, interpret)
-                return carry, (idx, err)
-
-            _, (idx, err) = jax.lax.scan(body, None, rows2d)
-            return idx.reshape(-1), err.reshape(-1)
-
-        in_specs = (P(ax), P(None, None, None, None), P(None, None))
-    else:
-        def local(rows_loc, src_rep, cands3d):
-            from ..ops.knn import _scan_argmin
-            rows2d = rows_loc.reshape(-1, qchunk)
-
-            def body(carry, r):
-                q = features.psyv_features_rgb(
-                    src_rep[r], gamma_value=gamma_value,
-                    use_wavelets=use_wavelets)
-                idx, err = _scan_argmin(q, cands3d)
-                return carry, (idx, err)
-
-            _, (idx, err) = jax.lax.scan(body, None, rows2d)
-            return idx.reshape(-1), err.reshape(-1)
-
-        in_specs = (P(ax), P(None, None, None, None), P(None, None, None))
-
-    fn = jax.jit(jax.shard_map(
-        local, mesh=mesh, in_specs=in_specs,
-        out_specs=(P(ax), P(ax)), check_vma=False))
-    _assign_cache[key] = fn
-    return fn
+# -- stages 2 and 3: the single-device programs, once per device --------
+# A shard_map program is compiled (fused, autotuned) as a program of its
+# own, and on the GPU its float32 results can differ from the 1-device
+# program's in the last bits, which moves nearest-neighbour winners.
+# So the float-heavy FrameTiling stages run the 1-device jitted function
+# itself on each device's contiguous slice of the rows: every device
+# runs the executable the 1-device encode runs (at a smaller row count).
 
 
-def assign_sharded_full(mesh: Mesh, rows: np.ndarray, src_rep, cands_rep,
-                        gamma_value, use_wavelets: bool,
-                        pallas: bool = False, interpret: bool = False):
-    """Stage-3 assign for a WHOLE keyframe in ONE dispatch, the query
-    rows sharded across the mesh.
-
-    rows: [QP] int32 (QP a pow2 multiple of the device count) indices
-    into the replicated source-tile tensor; cands_rep: the replicated
-    candidate features — flat [C,192] for the Pallas kernel, chunked
-    [n_chunks, BC, 192] for the XLA scan. Returns (idx [QP] i32,
-    err [QP] f32) — per-row identical to the single-device path (the
-    Pallas kernel and the scan share the lowest-index-wins tie rule)."""
-    n_dev = mesh.devices.size
-    qp_loc = len(rows) // n_dev
-    qchunk = min(65536 if pallas else 16384, qp_loc)
-    # pallas blocks 1024x2048: fits the 16 MB scoped-VMEM limit inside
-    # the scan body (see frame_tiling's single-device call site)
-    fn = _get_assign_full_fn(
-        mesh, gamma_value, use_wavelets, qchunk=qchunk,
-        pallas=pallas, interpret=interpret, bq=min(1024, qchunk),
-        bc=2048)
-    rows_d = jax.device_put(rows, NamedSharding(mesh, P(mesh.axis_names)))
-    return fn(rows_d, src_rep, cands_rep)
+def local_copy(arr, device):
+    """arr's buffer on `device`: the shard already there when arr is
+    replicated over a mesh that holds it, else a copy."""
+    for shard in getattr(arr, 'addressable_shards', ()):
+        if shard.device == device and shard.data.shape == arr.shape:
+            return shard.data
+    return jax.device_put(arr, device)
 
 
-# -- stage 2: candidate-combo PsyV features -------------------------------
+def per_device_rows(mesh: Mesh, fn, rows, *args, axis: int = 0):
+    """fn(rows_slice, *args) on every device of the mesh, rows split
+    along `axis` into equal contiguous slices (the length must divide by
+    the device count); args are given to each device whole (replicated
+    arrays are used in place). Returns fn's outputs as arrays sharded
+    along their first axis over the mesh, rows in the original order."""
+    devs = list(mesh.devices.ravel())
+    parts = np.split(np.asarray(rows), len(devs), axis=axis)
+    outs = [fn(jax.device_put(part, d), *(local_copy(a, d) for a in args))
+            for part, d in zip(parts, devs)]
+    sh = NamedSharding(mesh, P(mesh.axis_names))
 
-_feats_cache: dict = {}
+    def join(parts):
+        shape = (parts[0].shape[0] * len(parts),) + parts[0].shape[1:]
+        return jax.make_array_from_single_device_arrays(shape, sh, parts)
 
-
-def _get_chunk_feats_fn(mesh: Mesh, gamma_value, use_wavelets: bool):
-    key = (mesh, gamma_value, use_wavelets)
-    fn = _feats_cache.get(key)
-    if fn is not None:
-        return fn
-    _evict_other_meshes(_feats_cache, mesh)
-    ax = mesh.axis_names
-
-    def local(tp_all, pal_all, packed):
-        from ..pipeline.frame_tiling import _chunk_feats
-        return _chunk_feats(tp_all, pal_all, packed, 0, gamma_value,
-                            use_wavelets)
-
-    fn = jax.jit(jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(None, None, None), P(None, None, None),
-                  P(None, ax)),
-        out_specs=P(ax), check_vma=False))
-    _feats_cache[key] = fn
-    return fn
-
-
-def chunk_feats_sharded(mesh: Mesh, tp_rep, pal_rep, packed,
-                        gamma_value, use_wavelets: bool):
-    """frame_tiling._chunk_feats with the packed combo index matrix
-    sharded across the mesh (axis 1); tile tensor + palettes replicated.
-    Returns the [QP,192] features as a mesh-sharded array."""
-    fn = _get_chunk_feats_fn(mesh, gamma_value, use_wavelets)
-    sh = NamedSharding(mesh, P(None, mesh.axis_names))
-    return fn(tp_rep, pal_rep, jax.device_put(packed, sh))
+    return jax.tree.map(lambda *parts: join(list(parts)), *outs)
 
 
 # -- Knoll dither: plan counts + per-pixel rank selection -----------------
@@ -271,89 +172,6 @@ def knoll_assign_sharded(mesh: Mesh, counts_rep, inv, keys, pals_rep):
     _, assign_fn = _get_knoll_fns(mesh)
     return assign_fn(counts_rep, shard_rows(mesh, inv),
                      shard_rows(mesh, keys), pals_rep)
-
-
-# -- dither prepare: fused PsyV features + k-means, rows sharded ----------
-# The feature pass shards exactly (rows independent). Inside k-means the
-# ASSIGNMENT (the [N,D]@[D,k] distance matmul — half the per-iteration
-# FLOPs) computes on each device's own rows; the CENTROID UPDATE runs
-# replicated on the all-gathered feature array, because its f32 one-hot
-# matmul sums are accumulation-order-sensitive — a psum of per-shard
-# partial sums could drift low bits and flip a label, breaking the mesh
-# byte-identity guarantee. Replicated update = the exact single-device
-# matmul on the exact single-device input, so labels/centroids match the
-# unsharded solver bit for bit (asserted by the mesh encode tests).
-
-_kmeans_cache: dict = {}
-
-
-def _get_kmeans_prepare_fn(mesh: Mesh, n: int, k: int, gamma_value,
-                           use_lab: bool, use_wavelets: bool,
-                           max_iters: int = 100, seed: int = 0x42381337):
-    key = (mesh, n, k, gamma_value, use_lab, use_wavelets, max_iters,
-           seed)
-    fn = _kmeans_cache.get(key)
-    if fn is not None:
-        return fn
-    _evict_other_meshes(_kmeans_cache, mesh)
-    ax = mesh.axis_names
-    from ..ops.kmeans import _assign, _plus_plus_init, _update
-
-    def local(tp_all, idx_loc):
-        feats_loc = features.psyv_features_rgb(
-            tp_all[idx_loc], gamma_value=gamma_value, use_lab=use_lab,
-            use_wavelets=use_wavelets).astype(jnp.float32)
-        x2_loc = jnp.sum(feats_loc * feats_loc, axis=1)
-        feats = jax.lax.all_gather(feats_loc, ax, tiled=True)
-        x = feats[:n]
-        cents = _plus_plus_init(x, k, jax.random.PRNGKey(seed))
-
-        def assign_all(cents):
-            lab_loc, _ = _assign(feats_loc, x2_loc, cents)
-            return jax.lax.all_gather(lab_loc, ax, tiled=True)[:n]
-
-        labels = assign_all(cents)
-
-        def cond(carry):
-            _, _, changed, it = carry
-            return jnp.logical_and(changed, it < max_iters)
-
-        def body(carry):
-            cents, labels, _, it = carry
-            cents, _ = _update(x, labels, k, cents)
-            new_labels = assign_all(cents)
-            return (cents, new_labels, jnp.any(new_labels != labels),
-                    it + 1)
-
-        cents, labels, _, _ = jax.lax.while_loop(
-            cond, body, (cents, labels, jnp.bool_(True), jnp.int32(0)))
-        cents, _ = _update(x, labels, k, cents)
-        # u8 labels: k <= 256, and the download is bandwidth-bound
-        return labels.astype(jnp.uint8), cents
-
-    fn = jax.jit(jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(None, None, None, None), P(ax)),
-        out_specs=(P(None), P(None, None)), check_vma=False))
-    _kmeans_cache[key] = fn
-    return fn
-
-
-def kmeans_prepare_sharded(mesh: Mesh, tiles_rep, idx_padded: np.ndarray,
-                           n: int, k: int, gamma_value, use_lab: bool,
-                           use_wavelets: bool):
-    """Dither-prepare for one keyframe in ONE dispatch, feature rows
-    sharded across the mesh: PsyV(LAB) features of the referenced tiles
-    + Lloyd's k-means into k palette groups. idx_padded: [n_pad] int32
-    (n_pad a pow2 multiple of the device count) cell-tile indices into
-    the replicated source-tile tensor; rows past n are padding. Returns
-    (labels [n] i32, centroids [k,D] f32) — bit-identical to
-    ops.kmeans.kmeans on the same rows."""
-    fn = _get_kmeans_prepare_fn(mesh, n, k, gamma_value, use_lab,
-                                use_wavelets)
-    idx_d = jax.device_put(idx_padded,
-                           NamedSharding(mesh, P(mesh.axis_names)))
-    return fn(tiles_rep, idx_d)
 
 
 # -- smooth: fused cell features + frame-chain scan, cells sharded --------
@@ -434,13 +252,13 @@ def _get_topk_fn(mesh: Mesh, k: int):
     _evict_other_meshes(_topk_cache, mesh)
     ax = mesh.axis_names
 
-    def local(q_loc, cands3d):
+    def local(q_loc, cands):
         from ..ops.knn import _scan_topk
-        return _scan_topk(q_loc, cands3d, k)
+        return _scan_topk(q_loc, cands, k)
 
     fn = jax.jit(jax.shard_map(
         local, mesh=mesh,
-        in_specs=(P(ax, None), P(None, None, None)),
+        in_specs=(P(ax, None), P(None, None)),
         out_specs=(P(ax, None), P(ax, None)), check_vma=False))
     _topk_cache[key] = fn
     return fn
@@ -450,24 +268,24 @@ _cands_rep_cache: dict = {}
 
 
 def nearest_k_sharded(mesh: Mesh, queries: np.ndarray, candidates,
-                      k: int, q_chunk: int = 8192, c_chunk: int = 8192):
+                      k: int, q_chunk: int = 8192):
     """ops.knn.nearest_k with each query chunk sharded across the mesh;
     candidates replicated. Bit-identical per query to the single-device
     scan (same _scan_topk program on a smaller batch)."""
-    from ..ops.knn import _device_chunks, _pad_pow2, _pad_rows
+    from ..ops.knn import _pad_pow2, _pad_rows, pad_candidates
     q_all = np.asarray(queries, np.float32)
     n_q = len(q_all)
     # one-entry cache: FrameTiling marks every keyframe against the SAME
     # global dataset — rebuilding + re-broadcasting it per keyframe would
-    # repeat the ICI all-gather (id() key is safe here: the cache also
+    # repeat the broadcast (id() key is safe here: the cache also
     # holds a reference, so the id cannot be recycled while cached)
-    ckey = (mesh, id(candidates), c_chunk)
+    ckey = (mesh, id(candidates))
     if _cands_rep_cache.get('key') != ckey:
         _cands_rep_cache.clear()
         _cands_rep_cache['key'] = ckey
         _cands_rep_cache['src'] = candidates
         _cands_rep_cache['rep'] = replicate(
-            mesh, _device_chunks(candidates, c_chunk))
+            mesh, pad_candidates(candidates))
     cands = _cands_rep_cache['rep']
     fn = _get_topk_fn(mesh, k)
     sh = NamedSharding(mesh, P(mesh.axis_names, None))

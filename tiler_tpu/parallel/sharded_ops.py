@@ -3,7 +3,7 @@
 These shard the batch (tiles / cells) across every device of a mesh and
 keep model-side state (centroids, candidate sets) replicated — the P1/P2
 frame- and keyframe-parallelism of the reference's thread pool
-(SURVEY.md §2.4) mapped onto chips, with psum allreduce where the
+(SURVEY.md §2.4) mapped onto devices, with psum allreduce where the
 reference shared memory:
 
   - sharded_psyv_features : pure DP, no communication
@@ -11,8 +11,8 @@ reference shared memory:
                             iteration (the yakmo-replacement at scale)
   - sharded_nearest_1     : queries sharded, candidates replicated
 
-All ops accept any ('gop','frame') mesh from parallel.mesh.make_mesh and
-degrade gracefully to a single device.
+All ops accept any mesh from parallel.mesh.make_mesh and degrade
+gracefully to a single device.
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import features
-
-_AXES = ('gop', 'frame')
+from ..ops.numerics import stream_precision
+from .mesh import ROWS as _AXES
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -82,11 +82,14 @@ def sharded_kmeans(mesh: Mesh, feats: np.ndarray, k: int,
     def step(x_loc, v_loc, cents):
         c2 = jnp.sum(cents * cents, axis=1)
         dist = (jnp.sum(x_loc * x_loc, 1)[:, None] + c2[None, :]
-                - 2.0 * (x_loc @ cents.T))
+                - 2.0 * jnp.matmul(x_loc, cents.T,
+                                   precision=stream_precision()))
         lab = jnp.argmin(dist, axis=1)
         w = v_loc.astype(jnp.float32)
         onehot = jax.nn.one_hot(lab, k, dtype=jnp.float32) * w[:, None]
-        sums = jax.lax.psum(onehot.T @ x_loc, _AXES)
+        sums = jax.lax.psum(
+            jnp.matmul(onehot.T, x_loc, precision=jax.lax.Precision.HIGHEST),
+            _AXES)
         counts = jax.lax.psum(jnp.sum(onehot, axis=0), _AXES)
         new_cents = jnp.where(counts[:, None] > 0,
                               sums / jnp.maximum(counts, 1.0)[:, None],
@@ -188,9 +191,14 @@ def _kmodes_solver(flat_mesh: Mesh, n_loc: int, a: int, k_pad: int,
     shape buckets, so the cache brings distributed GT solves down to a
     few compiles total."""
     from ..constants import DISSIM_SUB_MATCHING_BITS
-    from ..ops.kmodes import (_cost_less, make_dissim_fn,
+    from ..ops.kmodes import (_EXACT_F32_INT, _cost_less, make_dissim_fn,
                               _normalize_cost_triple)
     ax = 'km'
+    # 0/1 weights: the segment_sum counts below (scatter-add atomics on a
+    # GPU) and their psum are exact float32 integers, so order-independent,
+    # while the whole bin stays below 2^24 points
+    if n_loc * flat_mesh.devices.size >= _EXACT_F32_INT:
+        raise ValueError('KModes bin too large for exact float32 counts')
 
     def solver(x_loc, v_loc, valid_k, start_point):
         my = jax.lax.axis_index(ax)
@@ -308,48 +316,25 @@ def _kmodes_solver(flat_mesh: Mesh, n_loc: int, a: int, k_pad: int,
 
 
 def sharded_nearest_1(mesh: Mesh, queries: np.ndarray,
-                      candidates: np.ndarray, c_chunk: int = 8192):
-    """Queries sharded across devices, candidates replicated; exact 1-NN."""
+                      candidates: np.ndarray):
+    """Queries sharded across devices, candidates replicated; exact 1-NN
+    (the same knn.argmin_1nn program on each shard)."""
+    from ..ops import knn
     n = len(queries)
     n_dev = mesh.devices.size
     n_pad = _pad_to(max(n, n_dev), n_dev * 8)
     qp = np.concatenate(
         [queries, np.zeros((n_pad - n, queries.shape[1]),
                            queries.dtype)]) if n_pad != n else queries
-    n_c = len(candidates)
-    n_chunks = max(1, -(-n_c // c_chunk))
-    cp = np.full((n_chunks * c_chunk, candidates.shape[1]), 1e9, np.float32)
-    cp[:n_c] = candidates
-    cands = cp.reshape(n_chunks, c_chunk, -1)
 
-    data_sh = NamedSharding(mesh, P(_AXES))
-    q = jax.device_put(np.asarray(qp, np.float32), data_sh)
-    c = jax.device_put(cands, NamedSharding(mesh, P(None, None, None)))
-
-    def local(q_loc, cands_rep):
-        q2 = jnp.sum(q_loc * q_loc, axis=1)
-
-        def stepf(carry, chunk):
-            best_err, best_idx, base = carry
-            c2 = jnp.sum(chunk * chunk, axis=1)
-            dmat = q2[:, None] + c2[None, :] - 2.0 * (q_loc @ chunk.T)
-            idx = jnp.argmin(dmat, axis=1)
-            err = jnp.take_along_axis(dmat, idx[:, None], axis=1)[:, 0]
-            take = err < best_err
-            return (jnp.where(take, err, best_err),
-                    jnp.where(take, idx.astype(jnp.int32) + base, best_idx),
-                    base + chunk.shape[0]), None
-
-        init = (jnp.full(q_loc.shape[0], jnp.inf, jnp.float32),
-                jnp.zeros(q_loc.shape[0], jnp.int32), jnp.int32(0))
-        (err, idx, _), _ = jax.lax.scan(stepf, init, cands_rep)
-        return idx, err
-
+    q = jax.device_put(np.asarray(qp, np.float32),
+                       NamedSharding(mesh, P(_AXES)))
+    c = jax.device_put(knn.pad_candidates(candidates),
+                       NamedSharding(mesh, P(None, None)))
     fn = jax.jit(jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(_AXES), P(None, None, None)),
-        out_specs=(P(_AXES), P(_AXES)),
-        check_vma=False))
+        knn.argmin_1nn,
+        mesh=mesh, in_specs=(P(_AXES), P(None, None)),
+        out_specs=(P(_AXES), P(_AXES)), check_vma=False))
     idx, err = fn(q, c)
     return np.asarray(idx)[:n], np.asarray(err)[:n]
 
@@ -464,7 +449,7 @@ def sharded_unique(mesh: Mesh, tiles_pal_dev, act: np.ndarray,
     with the same radix kernel as the single-device path
     (pipeline.unique._unique_fwd_dev_jit), so per-shard work is
     ~A/D log A/D instead of A log A — the reference's tile-chunk
-    MakeUnique fan-out (main.pas:933, SURVEY P4) as a real multi-chip
+    MakeUnique fan-out (main.pas:933, SURVEY P4) as a real multi-device
     program.
 
     Returns host (sidx, winner) pairs over the padded rows; entries with

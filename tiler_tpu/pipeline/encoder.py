@@ -18,6 +18,8 @@ class Encoder:
         """mesh: optional jax.sharding.Mesh (parallel.mesh.make_mesh) —
         runs the frame-axis-parallel stages sharded across its devices
         with a byte-identical output stream (parallel.mesh_pipeline)."""
+        from ..compile_cache import enable
+        enable()
         self.config = config or EncoderConfig()
         self.state = EncoderState(config=self.config)
         self.state.mesh = mesh

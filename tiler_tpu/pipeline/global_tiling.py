@@ -258,7 +258,7 @@ def run_global_tiling(state: EncoderState,
         # 41.8 s to 3.5 s on the 8-device CPU mesh) the sequential
         # per-bin solves still trail the vmapped super-shape batch
         # solver (2.5 s) — the bins are many and small, and vmap lanes
-        # already saturate one chip. On real multi-chip hardware with
+        # already fill one device. On real multi-GPU hardware with
         # large bins the distributed solve may win; multi-host encodes
         # reach it through parallel.gop_exact either way.
         fwd, new_use, new_active, merges = compute_global_tiling_fwd(

@@ -1,5 +1,4 @@
-"""Decode throughput benchmark on the demo streams (the BASELINE.json
-"GTM decode frames/s" metric).
+"""Decode throughput benchmark on the demo streams (GTM decode frames/s).
 
 Usage: python tools/decode_bench.py [path.gtm]
 Prints one JSON line with fps for the native-parse + numpy-blit path and

@@ -1,8 +1,7 @@
 """Feasibility probe for exact IVF-style pruning of the FT stage-3 1-NN.
 
-The stage-3 assign is MXU-bound at the f32 matmul ceiling
-(tools/assign_opt_bench.py), so the only remaining speedup is visiting
-fewer candidates. Exact pruning needs triangle-inequality ball bounds:
+The stage-3 assign is an exact dense search over every candidate; one
+way to speed it up is to visit fewer candidates. Exact pruning needs triangle-inequality ball bounds:
 cluster the candidate features (k-means), then a query may skip cluster k
 iff (d(q, mu_k) - r_k)^2 > u_q, where u_q is an upper bound from probing
 the query's nearest cluster. This tool measures, on REAL content (the
@@ -18,10 +17,8 @@ import os
 import sys
 import time
 
+# the probe counts candidates visited, which the CPU computes as well
 os.environ.setdefault('JAX_PLATFORMS', 'cpu')
-import jax
-
-jax.config.update('jax_platforms', 'cpu')
 
 import numpy as np
 

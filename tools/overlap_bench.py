@@ -1,6 +1,6 @@
 """A/B measurement of the dither host/device overlap on a MULTI-keyframe
-1080p clip (VERDICT r2 item 4's done-criterion: quantize substantially
-hidden on a multi-keyframe 1080p bench, bytes identical).
+1080p clip (done-criterion: quantize substantially hidden on a
+multi-keyframe 1080p bench, bytes identical).
 
 One process, warm: encode a 3-shot 1080p clip with the software-pipelined
 dither (default) and with TILER_NO_OVERLAP=1 (host quantize serialized),
